@@ -1,7 +1,6 @@
 """High-precision solves: precision="mixed" (f32 refinement stages +
-warm-started f64 tail) reaches 1e-8 KKT without giving up the fast
-kernel; precision="f64" runs end-to-end double (SpMV on the compensated
-double-f32 lane kernel on TPU)."""
+warm-started f64 tail) reaches 1e-8 KKT from the fast f32 iterations;
+precision="f64" runs native f64 end to end."""
 
 import numpy as np
 import scipy.sparse as sp

@@ -29,7 +29,7 @@ shrinks back).  Right for a solver appliance / benchmark run; wrong for
 memory-constrained co-tenancy — hence opt-in.
 
 No reference counterpart (the reference's host side never exceeds MPS
-parsing; SURVEY 5.7 — giant-scale ingest is a new, TPU-era component).
+parsing; SURVEY 5.7).
 """
 from __future__ import annotations
 
@@ -123,56 +123,3 @@ def tune_malloc(thp: bool | None = None) -> dict:
 
     _done.update(report)
     return report
-
-
-def is_tuned() -> bool:
-    """True when tune_malloc() has applied the brk-heap mallopt."""
-    return bool(_done.get("mallopt"))
-
-
-_preheated = 0
-
-
-def preheat(n_bytes: int) -> int:
-    """Pre-fault ~n_bytes of the brk heap in parallel (hugepage-advised).
-
-    Page-zero faulting on the target VMs is single-thread-bound and slow
-    (~130 MB/s measured — a fresh 1.8 GB numpy temporary costs ~13 s on
-    first touch), while a parallel touch with THP runs ~13 GB/s.  With
-    the brk tuning active, faulting the working set ONCE up front means
-    every later multi-GB numpy temporary reuses hot pages.  No-op unless
-    tune_malloc() ran (untuned processes would just mmap+munmap the
-    block).  Returns the bytes actually preheated."""
-    global _preheated
-    if not is_tuned() or n_bytes <= _preheated:
-        return 0
-    try:
-        from .native import get_lib
-
-        lib = get_lib()
-        if lib is None:
-            return 0
-        import numpy as np
-
-        # Leave headroom: never preheat past ~40% of available memory.
-        avail = None
-        try:
-            with open("/proc/meminfo") as f:
-                for line in f:
-                    if line.startswith("MemAvailable:"):
-                        avail = int(line.split()[1]) * 1024
-                        break
-        except OSError:
-            pass
-        target = int(n_bytes)
-        if avail is not None:
-            target = min(target, int(avail * 0.4))
-        if target <= _preheated:
-            return 0
-        buf = np.empty(target, np.uint8)
-        lib.hprlp_parallel_touch(buf, target)
-        _preheated = max(_preheated, target)
-        del buf
-        return target
-    except Exception:
-        return 0

@@ -1,8 +1,8 @@
-"""Central numeric constants for the HPR-LP TPU solver.
+"""Central numeric constants for the HPR-LP solver.
 
 Mirrors the role of the reference's include/constants.h (reference:
 /root/reference/include/constants.h) but holds only values that are part of
-the algorithm's observable behaviour; TPU tiling constants live here too.
+the algorithm's observable behaviour; device layout constants live here too.
 """
 
 # Bounds with magnitude at or above this value are treated as infinite.
@@ -36,10 +36,11 @@ RUIZ_ITERS = 10
 DEFAULT_STOP_TOL = 1e-4
 MILESTONE_TOLS = (1e-4, 1e-6, 1e-8)
 
-# --- TPU layout constants (no reference counterpart; TPU-native design) ---
+# --- Device layout constants (no reference counterpart) ---
 
 # Vectors (and the padded row/col spaces of the problem) are padded to a
-# multiple of this so 1-D elementwise ops tile onto the 8x128 VPU lanes.
+# multiple of this, so padded sizes stay stable across similar problems
+# (fewer distinct shapes to compile) and divide evenly over a mesh.
 VECTOR_PAD_MULTIPLE = 256
 
 # Minimum ELL bucket width. Row nnz is rounded up to a power of two >= this.
@@ -55,8 +56,8 @@ MIN_BUCKET_ROWS = 256
 #   * single-LP SpMV reads the whole dense matrix per matvec, so a dense
 #     candidate only pays off while the matrix read stays comfortably
 #     inside HBM alongside the solver state;
-#   * batched SpMM amortises the matrix read over the B batch columns on
-#     the MXU, so a dense candidate stays profitable (and worth probing)
-#     at 3x the single-LP size.
+#   * batched SpMM amortises the matrix read over the B batch columns,
+#     so a dense candidate stays profitable (and worth probing) at 3x the
+#     single-LP size.
 DENSE_BYTES_LIMIT_SINGLE = 2 * 1024 * 1024 * 1024
 DENSE_BYTES_LIMIT_BATCHED = 6 * 1024 * 1024 * 1024

@@ -96,67 +96,19 @@ def solve_with_presolve(problem: LpProblem,
     if params.use_presolve:
         from . import presolve as ps
 
-        # Giant regime: overlap presolve (single-threaded native C, GIL
-        # released) with the OPTIMISTIC lane-first ingest of the ORIGINAL
-        # problem — on the measured giant families presolve removes
-        # little or nothing, so the ingest is almost always reusable and
-        # its wall disappears behind presolve's (and vice versa).  When
-        # presolve DOES shrink the problem meaningfully (>10% of nnz),
-        # the optimistic ingest is discarded and the reduced problem is
-        # ingested as usual — the cost of that rare case is one wasted
-        # overlapped build.  Solving the ORIGINAL model is always valid;
-        # postsolve only runs when the reduced model was solved.
-        giant_ingest = None
         t0 = _time.perf_counter()
         # Presolve wall budget: the 60 s default clipped to the solver's
         # time limit (parity: src/pslp_integration.cpp:232-234 — a
         # time_limit=10 solve must not burn the full presolve default).
         pre_budget = min(60.0, float(params.time_limit))
         try:
-            from .solver import loop as _loop
-
-            overlap = (_loop.giant_regime(problem)
-                       and x0 is None and y0 is None)
-            if overlap:
-                from concurrent.futures import ThreadPoolExecutor
-
-                def timed_presolve():
-                    t = _time.perf_counter()
-                    out = ps.presolve_problem(problem,
-                                              max_time=pre_budget)
-                    return out, _time.perf_counter() - t
-
-                with ThreadPoolExecutor(1) as ex:
-                    fut = ex.submit(timed_presolve)
-                    try:
-                        giant_ingest = _loop.build_giant_ingest(problem,
-                                                                params)
-                    except Exception:
-                        giant_ingest = None  # loop.py will rebuild
-                    (status, reduced, handle), t_pre = fut.result()
-            else:
-                status, reduced, handle = ps.presolve_problem(
-                    problem, max_time=pre_budget)
-                t_pre = _time.perf_counter() - t0
+            status, reduced, handle = ps.presolve_problem(
+                problem, max_time=pre_budget)
         except Exception as e:  # error boundary: degrade to full model
             print(f"[presolve] failed ({e}); solving the original model",
                   file=__import__("sys").stderr)
             status, reduced, handle = "UNAVAILABLE", None, None
-            t_pre = _time.perf_counter() - t0
-        if status == "OK" and giant_ingest is not None and \
-                reduced is not None and reduced.n > 0:
-            if problem.nnz - reduced.nnz > 0.1 * problem.nnz:
-                giant_ingest = None  # meaningful reduction: re-ingest
-            else:
-                # Solve the ORIGINAL with the overlapped ingest (skip
-                # the small reduction; no postsolve needed).
-                log(f"Presolve removed {problem.nnz - reduced.nnz} nnz "
-                    f"(<10%); solving the original with the overlapped "
-                    f"giant ingest")
-                res = solve_problem(problem, params, x0=x0, y0=y0,
-                                    _giant_ingest=giant_ingest)
-                res.presolve_time = t_pre
-                return res
+        t_pre = _time.perf_counter() - t0
 
         if status in ("INFEASIBLE", "UNBOUNDED"):
             res = Results()
@@ -217,12 +169,6 @@ def solve_with_presolve(problem: LpProblem,
                     # original-space 5.7e-15 on transport_1e-8).
                     res.status = "OPTIMAL"
             return res
-
-        # UNAVAILABLE / failed presolve: reuse the overlapped ingest if
-        # one was built (the solve target IS the original model here).
-        if giant_ingest is not None:
-            return solve_problem(problem, params, x0=x0, y0=y0,
-                                 _giant_ingest=giant_ingest)
 
     return solve_problem(problem, params, x0=x0, y0=y0)
 

@@ -81,54 +81,6 @@ def _configure(lib):
     lib.hpres_report.restype = ct.c_int64
     lib.hpres_report.argtypes = [h, ct.c_char_p, ct.c_int64]
 
-    lib.hpres_lane_schedule.restype = ct.c_int64
-    lib.hpres_lane_schedule.argtypes = [
-        ct.c_int64, _i64p, _i64p, _i64p, _i32p, _i32p, ct.c_int64]
-
-    lib.lane_route_counts.restype = ct.c_int64
-    lib.lane_route_counts.argtypes = [
-        _i64p, _i64p, ct.c_int64, ct.c_int64, ct.c_int64,
-        _i32p, _i32p, _i32p]
-
-    lib.hpres_lane_pack_thin.restype = ct.c_int64
-    lib.hpres_lane_pack_thin.argtypes = [
-        ct.c_int64, _i64p, _i64p, ct.c_int32, _i64p, _i32p, _i32p, _i64p,
-        ct.c_int64]
-
-    _i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
-    _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-    lib.hprlp_parallel_touch.restype = None
-    lib.hprlp_parallel_touch.argtypes = [_u8p, ct.c_int64]
-
-    lib.hprlp_lane_fill_thin.restype = ct.c_int64
-    lib.hprlp_lane_fill_thin.argtypes = [
-        ct.c_int64, _i64p, _i64p, _f64p, _i64p, _i32p, _i64p, ct.c_int64,
-        ct.c_int32, _i8p, _i8p, _f64p, _i8p]
-
-    lib.hprlp_lane_fill_aligned.restype = ct.c_int64
-    lib.hprlp_lane_fill_aligned.argtypes = [
-        ct.c_int64, _i64p, _i64p, _f64p, _i64p, ct.c_int64, _i8p, _i8p,
-        _f64p]
-
-    lib.hprlp_scale_matrix.restype = ct.c_int
-    lib.hprlp_scale_matrix.argtypes = [
-        ct.c_int64, ct.c_int64, _i64p, _i32p, _f64p, _i64p, _i32p, _f64p,
-        ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int, _f64p, _f64p]
-
-    _u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
-    lib.hprlp_sort_index_u64.restype = ct.c_int
-    lib.hprlp_sort_index_u64.argtypes = [_u64p, ct.c_int64, _i64p]
-
-    lib.hprlp_gather_i64.restype = None
-    lib.hprlp_gather_i64.argtypes = [_i64p, _i64p, ct.c_int64, _i64p]
-    lib.hprlp_gather_f64.restype = None
-    lib.hprlp_gather_f64.argtypes = [_f64p, _i64p, ct.c_int64, _f64p]
-
-    lib.hpres_balance_cells.restype = ct.c_int64
-    lib.hpres_balance_cells.argtypes = [
-        ct.c_int64, _i64p, _i32p, ct.c_int64, _i64p, _i32p, _i32p, _i32p,
-        _i64p, _f64p, ct.c_int64, ct.c_int32, ct.c_int32, _i32p]
-
     lib.hpmps_read.restype = h
     lib.hpmps_read.argtypes = [ct.c_char_p, ct.c_int]
     lib.hpmps_read_ex.restype = h

@@ -1,8 +1,8 @@
-"""Multi-host (DCN) bring-up for sharded solves (SURVEY §5.8 — new
-TPU-native component; the reference is single-GPU with no communication
-backend at all).
+"""Multi-host bring-up for sharded solves (SURVEY §5.8 — no reference
+counterpart; the reference is single-GPU with no communication backend at
+all).
 
-Usage on each host of a multi-host slice (or CPU fleet):
+Usage on each host (GPU hosts or a CPU fleet):
 
     import hprlp_tpu.parallel.distributed as dist
     dist.initialize(coordinator_address="host0:1234",
@@ -13,12 +13,12 @@ Usage on each host of a multi-host slice (or CPU fleet):
 `jax.distributed.initialize` wires the processes together; after it,
 `jax.devices()` returns the GLOBAL device list, so parallel.sharded's
 make_mesh/shard_problem span hosts transparently — the row-block GSPMD
-partition and the chunk-sharded LaneELL psum then ride ICI within a host
-and DCN across hosts (XLA picks the transport per mesh edge).
+partition's collectives then run within and across hosts (XLA picks the
+transport).
 
 Every process must call solve with the SAME problem data: LP vectors are
 small, so full replication of the host-side numpy data is the right
-trade (the big object, A's tiles, is uploaded shard-wise — each process
+trade (the big object, A's buckets, is uploaded shard-wise — each process
 materialises only its addressable shards via global_put)."""
 
 from __future__ import annotations
@@ -33,9 +33,10 @@ def initialize(coordinator_address: str | None = None,
                local_device_ids=None) -> None:
     """Initialise the JAX distributed runtime (idempotent).
 
-    On TPU pods the arguments are auto-detected from the environment and
-    may all be None; on CPU/GPU fleets pass them explicitly
-    (coordinator "host:port", total process count, this process's id).
+    Pass the arguments explicitly (coordinator "host:port", total process
+    count, this process's id): nothing on a plain GPU or CPU host tells
+    JAX of a cluster, so a bare call fails unless the backend is already
+    up (then it is a no-op).
 
     NOTE: must run before ANY other JAX call — even jax.devices() or
     jax.process_count() bring the backend up, after which distributed

@@ -1,11 +1,11 @@
-"""Multi-chip sharding of the HPR-LP solve (TPU-native; no reference
-counterpart — the reference is single-GPU, SURVEY.md §2.9/§5.8).
+"""Multi-device sharding of the HPR-LP solve (no reference counterpart —
+the reference is single-GPU, SURVEY.md §2.9/§5.8).
 
 Design (GSPMD): the bucketed-ELL matrices A and A^T are partitioned along
 their ROW axis over a 1-D device mesh ('d'); iterate vectors are replicated.
 Every SpMV then computes a row block per device, and XLA inserts the
 all-gather that re-replicates the result for the next elementwise step —
-the communication rides ICI and is overlapped by the compiler.  Reductions
+XLA hands the collectives to NCCL on GPUs and overlaps them where it can.  Reductions
 (dots/norms) become psums automatically.
 
 Row-block partition is the natural layout for HPR-LP: one SpMV consumes the
@@ -32,7 +32,9 @@ from .distributed import global_put
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "d") -> Mesh:
-    """1-D mesh over the first n_devices local devices."""
+    """1-D mesh over the first n_devices devices.  A flat mesh fits cards
+    that are joined all to all (NVLink): every pair of devices talks at
+    the same rate, so the mesh follows the algorithm alone."""
     devs = jax.devices()
     if n_devices is not None:
         if len(devs) < n_devices:
@@ -43,11 +45,7 @@ def make_mesh(n_devices: int | None = None, axis: str = "d") -> Mesh:
 
 
 def _shard_ell(A: EllMatrix, mesh: Mesh, axis: str) -> EllMatrix:
-    """Place each bucket row-sharded over the mesh and stamp the mesh on
-    the matrix: with_backend(A, "lane") then builds CHUNK-sharded LaneELL
-    tiles and spmv() runs the Pallas kernel under shard_map + psum, so
-    mesh solves keep the fast kernel (round-1 gap: sharded solves fell
-    back to the gather backend)."""
+    """Place each bucket row-sharded over the mesh."""
     row_sharding = NamedSharding(mesh, P(axis, None))
     n = mesh.devices.size
     buckets = []
@@ -61,8 +59,7 @@ def _shard_ell(A: EllMatrix, mesh: Mesh, axis: str) -> EllMatrix:
             cols=global_put(b.cols, row_sharding),
             valid=global_put(b.valid, row_sharding),
             row_start=b.row_start, width=b.width))
-    return dataclasses.replace(A, buckets=tuple(buckets), mesh=mesh,
-                               mesh_axis=axis)
+    return dataclasses.replace(A, buckets=tuple(buckets))
 
 
 def shard_problem(lp: LpDevice, mesh: Mesh, axis: str = "d") -> LpDevice:

@@ -44,20 +44,23 @@ class Results:
     scaling_time: float = 0.0
     power_time: float = 0.0
     autotune_time: float = 0.0
-    # Host presolve wall (reference reports PSLP time on stdout only;
-    # surfacing it here makes the giant-LP ingest accounting explicit).
+    # Host presolve wall (the reference reports PSLP time on stdout only).
     presolve_time: float = 0.0
 
     # Restart statistics (reference HPRLP_restart counters).
     restarts: int = 0
-    # Stall-recovery interventions fired (TPU addition, Parameters.
-    # stall_recovery; always 0 on converging solves).
+    # Stall-recovery interventions fired (no reference counterpart,
+    # Parameters.stall_recovery; always 0 on converging solves).
     stall_recoveries: int = 0
 
-    # SpMV backend the solve ran on (gather / dense / lane) — autotune
+    # SpMV backend the solve ran on (gather / dense) — autotune
     # outcome, useful for asserting the fast path was kept (e.g. under a
     # device mesh).
     spmv_backend: str = ""
+
+    # XLA backend compiles that ran inside the iteration loop (the
+    # reference's loop compiles nothing; 0 is expected here too).
+    loop_compiles: int = 0
 
     # Final sigma in the SCALED space (no reference counterpart: enables
     # warm restarts to resume sigma adaptation via solve_problem(sigma0=...)

@@ -13,7 +13,6 @@ nothing to restore).
 
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Callable
 
@@ -24,33 +23,24 @@ from ..ops.device_problem import LpDevice
 from ..ops.sparse import with_backend
 
 # A dense candidate is considered only when the dense matrix is at most
-# this many bytes (both A and A^T are materialised while probing).  Large on
-# purpose: XLA's TPU gather lowering runs at ~35M elements/s (measured,
-# v5e), so a dense HBM-bandwidth matvec wins for any density above ~2e-4 —
-# even multi-GB dense matrices beat the gather path.  The batched path uses
-# the larger DENSE_BYTES_LIMIT_BATCHED; the rationale for the two budgets
-# lives with the constants (hprlp_tpu/constants.py).
+# this many bytes (both A and A^T are materialised while probing).  The
+# batched path uses the larger DENSE_BYTES_LIMIT_BATCHED; the rationale
+# for the two budgets lives with the constants (hprlp_tpu/constants.py).
 from ..constants import DENSE_BYTES_LIMIT_SINGLE as DENSE_BYTES_LIMIT
 SPEEDUP_MIN = 1.05  # reference: >= 5% faster to switch
 MERIT_RTOL = 0.01   # reference: within 1% of baseline merit
 # Below this nnz the probe compiles cost more than any possible win.
 AUTOTUNE_MIN_NNZ = 10_000
-# Above this nnz, skip the probe and take the lane kernel directly when
-# it is available: the gather BASELINE chunk alone costs minutes (XLA's
-# TPU gather lowering runs ~35M elem/s, so one 20-iteration probe at
-# 100M nnz is ~2 x 20 x 3 s) while the lane kernel has never lost above
-# 1M nnz — the symmetric upper counterpart of AUTOTUNE_MIN_NNZ.
-AUTOTUNE_LANE_DIRECT_NNZ = 20_000_000
 
 
 def _time_chunk(run, lp, args, n_rep: int = 2) -> tuple[float, dict]:
     state, metrics = run(lp, *args)  # compile + warm
-    float(metrics["nrm_Rp"])  # host fetch: block_until_ready can return
-    best = float("inf")       # early on experimental PJRT platforms
+    jax.block_until_ready(metrics)
+    best = float("inf")
     for _ in range(n_rep):
         t0 = time.perf_counter()
         state, metrics = run(lp, *args)
-        float(metrics["nrm_Rp"])
+        jax.block_until_ready(metrics)
         best = min(best, time.perf_counter() - t0)
     return best, {k: float(v) for k, v in jax.device_get(metrics).items()}
 
@@ -68,99 +58,31 @@ def autotune_backends(run: Callable, lp: LpDevice, probe_args,
     """Pick the fastest (A, A^T) backend pair for the chunk runner `run`.
 
     run(lp, *probe_args) -> (state, metrics) must be the jitted chunk.
-    Returns lp reconfigured with the winning backends.
+    Returns lp reconfigured with the winning backends.  Candidates are
+    the gather baseline, dense, and the two mixed dense/gather pairs; a
+    dense candidate needs the dense matrix within DENSE_BYTES_LIMIT.  A
+    probe that fails to build or run is an error of the solve, not a
+    reason to skip the candidate.
     """
     log = print if verbose else (lambda *a, **k: None)
-    # Lane kernel: TPU-only (interpret mode is too slow on CPU).  f64
-    # problems use the compensated double-f32 kernel (lane_spmv_df64).
-    lane_ok = jax.default_backend() != "cpu"
-    f64_pin = (lane_ok and jnp.dtype(lp.c.dtype) == jnp.float64
-               and lp.A.backend != "lane")  # already pinned (giant path)
-    if lp.A.nnz < AUTOTUNE_MIN_NNZ and not f64_pin:
-        # Too small for speed probing to matter — but the f64 precision
-        # pin below applies at ANY size.
+    if lp.A.nnz < AUTOTUNE_MIN_NNZ:
         return lp
     dense_ok = (lp.A.nrows * lp.A.ncols * jnp.dtype(lp.c.dtype).itemsize
                 <= DENSE_BYTES_LIMIT)
-    if lane_ok and lp.A.nnz >= AUTOTUNE_LANE_DIRECT_NNZ:
-        cand = None
-        try:
-            cand = LpDevice(A=with_backend(lp.A, "lane"),
-                            AT=with_backend(lp.AT, "lane"),
-                            AL=lp.AL, AU=lp.AU, c=lp.c, l=lp.l, u=lp.u)
-            # One chunk as a compile/execute smoke check (no timing, no
-            # gather baseline): a lowering failure on a new shape must
-            # fall back to the probing path, not abort the solve.
-            _state, metrics = run(cand, *probe_args)
-            float(metrics["nrm_Rp"])
-            log(f"[autotune] nnz={lp.A.nnz} >= {AUTOTUNE_LANE_DIRECT_NNZ}: "
-                f"lane selected without probing")
-            return cand
-        except Exception as e:
-            # Release any partially-attached lane tiles (gigabytes at
-            # this size) BEFORE probing other backends, or the fallback
-            # inherits the failed candidate's HBM and OOMs too.
-            cand = None  # noqa: F841
-            lane_ok = False
-            print(f"[hprlp_tpu] direct lane selection failed "
-                  f"({type(e).__name__}: {e}); probing other backends",
-                  flush=True)
-    if f64_pin:
-        # f64 on TPU is PINNED to the lane backend regardless of timing:
-        # the gather/dense paths run the chunk elementwise through XLA's
-        # TPU f64 emulation, whose fused chains are only ~1e-11 accurate
-        # — large sigmas (1e5-1e6 on structured LPs) amplify that into a
-        # 1e-3..1e-5 KKT floor (round-4 finding; the lane path instead
-        # runs every iteration on compensated double-f32 pairs, ~2^-48).
-        # Speed is secondary to reaching 1e-8 at all; gather remains the
-        # fallback only when the lane build itself fails.
-        try:
-            cand = LpDevice(A=with_backend(lp.A, "lane"),
-                            AT=with_backend(lp.AT, "lane"),
-                            AL=lp.AL, AU=lp.AU, c=lp.c, l=lp.l, u=lp.u)
-            _state, metrics = run(cand, *probe_args)
-            float(metrics["nrm_Rp"])
-            log("[autotune] f64 on TPU: lane pinned (precision)")
-            return cand
-        except Exception as e:
-            print(f"[hprlp_tpu] f64 lane pinning failed "
-                  f"({type(e).__name__}: {e}); falling back to probing "
-                  f"(reduced f64 accuracy)", flush=True)
-
-    if lane_ok:
-        # A dense matvec reads nrows*ncols*4 bytes per SpMV vs LaneELL's
-        # ~30 bytes/nnz; below ~1% density dense cannot win — skip the
-        # expensive densify+probe.
-        density = lp.A.nnz / max(1, lp.A.nrows * lp.A.ncols)
-        dense_ok = dense_ok and density > 0.01
-    candidates = [("gather", "gather")]
-    if lane_ok:
-        candidates.append(("lane", "lane"))
-    if dense_ok:
-        candidates += [("dense", "dense")]
-        if not lane_ok:
-            candidates += [("dense", "gather"), ("gather", "dense")]
-    if len(candidates) == 1:
+    if not dense_ok:
         return lp
+    candidates = [("dense", "dense"), ("dense", "gather"),
+                  ("gather", "dense")]
 
     base_time, base_metrics = _time_chunk(run, lp, probe_args)
     log(f"[autotune] gather/gather: {base_time * 1e3:.2f} ms")
     best = lp
     best_time = base_time
-    for a_b, at_b in candidates[1:]:
-        # A probe that fails to build or compile (e.g. a Pallas lowering
-        # edge case on a new matrix shape) must not abort the solve: keep
-        # the baseline and move on (the reference's autotuner likewise
-        # only ever switches away from a working baseline).
-        try:
-            cand = LpDevice(A=with_backend(lp.A, a_b),
-                            AT=with_backend(lp.AT, at_b),
-                            AL=lp.AL, AU=lp.AU, c=lp.c, l=lp.l, u=lp.u)
-            t, m = _time_chunk(run, cand, probe_args)
-        except Exception as e:
-            log(f"[autotune] {a_b}/{at_b}: probe failed ({type(e).__name__}: "
-                f"{e}); keeping baseline")
-            continue
+    for a_b, at_b in candidates:
+        cand = LpDevice(A=with_backend(lp.A, a_b),
+                        AT=with_backend(lp.AT, at_b),
+                        AL=lp.AL, AU=lp.AU, c=lp.c, l=lp.l, u=lp.u)
+        t, m = _time_chunk(run, cand, probe_args)
         ok = _merit_close(m, base_metrics)
         log(f"[autotune] {a_b}/{at_b}: {t * 1e3:.2f} ms"
             f"{'' if ok else '  (merit mismatch, rejected)'}")

@@ -1,6 +1,6 @@
 """Batched shared-A solver: B LPs with the same sparse A, different vectors.
 
-TPU-native redesign of the reference batched path (reference:
+Redesign of the reference batched path (reference:
 src/batched_solver.cu:939-1092 solve_batched): the per-batch dense data
 C/AL/AU/l/u are (n_pad, B)/(m_pad, B) device matrices; SpMV becomes SpMM
 over the batch axis (ops/sparse.spmm — the cuSPARSE SpMM analogue,
@@ -17,7 +17,7 @@ Differences from the single-LP path, matching the reference:
 
 The whole iteration stretch between checkpoints is one jitted chunk, as in
 the single-LP path (no host work per iteration; the reference syncs every
-iteration, :1073 — the TPU design is strictly more async).
+iteration, :1073).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..backend import platform
 from ..ops.device_problem import build_device_problem
 from ..ops.sparse import spmm
 from ..params import Parameters
@@ -262,32 +263,21 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
         lp0.A, lp0.AT, params.use_CR_scaling, params.use_Ruiz_scaling,
         params.use_Pock_Chambolle_scaling)
 
-    # Batched SpMM backend: a dense MXU matmul amortises the matrix read
-    # over the batch columns, so it usually wins whenever the dense matrix
-    # fits (the gather path pays XLA's slow TPU gather per member).  With
+    # Batched SpMM backend: a dense matrix product amortises the matrix
+    # read over the batch columns, so it usually wins whenever the dense
+    # matrix fits; its budget is larger than the single-LP autotuner's
+    # (both budgets are documented in hprlp_tpu/constants.py).  With
     # spmv_backend="auto" a timed probe decides below (batched autotune,
     # reference protocol parity: src/main_iterate.cu:517-595).
+    from ..constants import DENSE_BYTES_LIMIT_BATCHED as BATCHED_DENSE_BYTES
     from ..ops.sparse import with_backend
 
-    # Dense budget is larger than the single-LP autotuner's: the matrix
-    # read amortises over B batch columns, so dense-MXU SpMM beats a
-    # bandwidth-bound sparse kernel for any density above ~0.2% once
-    # B >= 128 (MXU flops are ~100x cheaper than HBM bytes); a LaneELL
-    # SpMM would only win for super-sparse shared-A matrices too big to
-    # densify, which the gather path still covers.  Both budgets are
-    # documented together in hprlp_tpu/constants.py.
-    from ..constants import DENSE_BYTES_LIMIT_BATCHED as BATCHED_DENSE_BYTES
     want = params.spmv_backend
     dense_ok = (m_pad * n_pad * jnp.dtype(dtype).itemsize
                 <= BATCHED_DENSE_BYTES)
     if want == "dense" and dense_ok:
         A_s = with_backend(A_s, "dense")
         AT_s = with_backend(AT_s, "dense")
-    elif want == "lane":
-        import sys as _sys
-
-        print("[solve_batched] no lane SpMM lowering; the batched "
-              "backends are gather/dense (autotuned)", file=_sys.stderr)
     row_norm = np.asarray(jax.device_get(row_norm_d), np.float64)
     col_norm = np.asarray(jax.device_get(col_norm_d), np.float64)
 
@@ -344,8 +334,7 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
         u=jnp.asarray(u_p.astype(np.dtype(dtype))))
     if params.mesh_shape:
         # Data-parallel scenario batching: shard the batch axis over the
-        # mesh, replicate the shared A/A^T (SURVEY §2.9 row 1 TPU-native
-        # equivalent).  Per-member host state stays host-side; the chunk
+        # mesh, replicate the shared A/A^T (SURVEY §2.9 row 1).  Per-member host state stays host-side; the chunk
         # runs SPMD with no cross-member communication.
         from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -384,10 +373,9 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
 
     # Batched backend autotune (reference protocol: >= 5% speedup + merit
     # within 1%, src/main_iterate.cu:517-595) between the gather SpMM and
-    # the dense-MXU SpMM on the real matrix.
-    if (want == "auto" and dense_ok and jax.default_backend() != "cpu"
-        and params.mesh_shape is None
-            and lp.A.nnz >= 10_000):
+    # the dense SpMM on the real matrix.  A probe failure propagates.
+    if (want == "auto" and dense_ok and platform() == "gpu"
+            and params.mesh_shape is None and lp.A.nnz >= 10_000):
         probe = (jnp.asarray(sigma, dtype), jnp.asarray(lam, dtype),
                  jnp.zeros(B, bool), jnp.ones(B, bool),
                  jnp.asarray(20, jnp.int32))
@@ -395,30 +383,27 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
         def time_cand(cand):
             st, mm = run_batched_chunk(cand, row_norm_d, col_norm_d,
                                        state, *probe)
-            float(mm["nrm_Rp"][0])
+            jax.block_until_ready(mm)
             best = float("inf")
             for _ in range(2):
                 t0 = time.perf_counter()
                 st, mm = run_batched_chunk(cand, row_norm_d, col_norm_d,
                                            state, *probe)
-                float(mm["nrm_Rp"][0])
+                jax.block_until_ready(mm)
                 best = min(best, time.perf_counter() - t0)
             return best, np.asarray(jax.device_get(mm["nrm_Rp"]))
 
-        try:
-            t_g, rp_g = time_cand(lp)
-            dense_lp = dataclasses.replace(
-                lp, A=with_backend(lp.A, "dense"),
-                AT=with_backend(lp.AT, "dense"))
-            t_d, rp_d = time_cand(dense_lp)
-            merit_ok = np.allclose(rp_d, rp_g, rtol=0.01, atol=1e-30)
-            log(f"[autotune] batched gather: {t_g * 1e3:.2f} ms, "
-                f"dense: {t_d * 1e3:.2f} ms"
-                f"{'' if merit_ok else ' (merit mismatch)'}")
-            if merit_ok and t_d * 1.05 < t_g:
-                lp = dense_lp
-        except Exception as e:  # keep the gather baseline on any failure
-            log(f"[autotune] batched dense probe failed ({e})")
+        t_g, rp_g = time_cand(lp)
+        dense_lp = dataclasses.replace(
+            lp, A=with_backend(lp.A, "dense"),
+            AT=with_backend(lp.AT, "dense"))
+        t_d, rp_d = time_cand(dense_lp)
+        merit_ok = np.allclose(rp_d, rp_g, rtol=0.01, atol=1e-30)
+        log(f"[autotune] batched gather: {t_g * 1e3:.2f} ms, "
+            f"dense: {t_d * 1e3:.2f} ms"
+            f"{'' if merit_ok else ' (merit mismatch)'}")
+        if merit_ok and t_d * 1.05 < t_g:
+            lp = dense_lp
 
     # Device-resident superchunk driver (solver/batched_device_loop.py):
     # per-member restart/sigma/stopping decisions all run inside jit; one
@@ -478,22 +463,18 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
         out.z = np.asfortranarray(z)
         return out
 
-    # Pre-compile the quiet-dispatch superchunk variant OUTSIDE the
-    # algorithm clock (mirror of solver/loop.py: the reference's loop
-    # contains no compilation; power method and autotune above are
-    # likewise setup).  Only worthwhile with a persistent compile cache
-    # for the in-loop dispatch to hit — otherwise the AOT result is pure
-    # double work.
+    # Compile the quiet-dispatch superchunk variant OUTSIDE the algorithm
+    # clock and dispatch that executable in the loop (mirror of
+    # solver/loop.py: the reference's loop contains no compilation; power
+    # method and autotune above are likewise setup).  Quiet solves use one
+    # big dispatch size: the device loop exits when every member
+    # converges, so a full-size dispatch never overshoots.
     n_quiet = 1 if params.verbose else 32
     n_quiet = max(1, min(n_quiet, (params.max_iter + check - 1) // check))
-    if jax.config.jax_compilation_cache_dir:
-        try:
-            run_batched_superchunk.lower(
-                lp, row_norm_d, col_norm_d, state, rd, sigma_d, lam_d,
-                active_d, metrics_prev, 0, b_scale_d, c_scale_d, nb_d,
-                nc_d, oc_d, params.stop_tol, n_quiet, check).compile()
-        except Exception:
-            pass  # compile inside the loop instead
+    quiet_superchunk = run_batched_superchunk.lower(
+        lp, row_norm_d, col_norm_d, state, rd, sigma_d, lam_d, active_d,
+        metrics_prev, 0, b_scale_d, c_scale_d, nb_d, nc_d, oc_d,
+        params.stop_tol, n_quiet, check).compile()
 
     # --- algorithm clock: iteration work only from here on ---
     t_alg = time.perf_counter()
@@ -522,16 +503,17 @@ def solve_batched(A, C, AL, AU, l, u, obj_constants=None,
             status[active_h] = "TIME_LIMIT"
             return finish(active_h)
 
-        # Quiet solves use one big dispatch size (the device loop exits
-        # when every member converges, so no overshoot; mirror of
-        # solver/loop.py's 128-chunk single-LP dispatch).
         n_chunks = max(1, min(n_quiet,
                               (params.max_iter - it + check - 1) // check))
-        state, rd, sigma_d, lam_d, active_d, metrics_prev, stacked, \
-            k_done = run_batched_superchunk(
-                lp, row_norm_d, col_norm_d, state, rd, sigma_d, lam_d,
+        args = (lp, row_norm_d, col_norm_d, state, rd, sigma_d, lam_d,
                 active_d, metrics_prev, it, b_scale_d, c_scale_d, nb_d,
-                nc_d, oc_d, params.stop_tol, n_chunks, check)
+                nc_d, oc_d, params.stop_tol)
+        if n_chunks == n_quiet:
+            outs = quiet_superchunk(*args)
+        else:
+            outs = run_batched_superchunk(*args, n_chunks, check)
+        (state, rd, sigma_d, lam_d, active_d, metrics_prev, stacked,
+         k_done) = outs
         k_done = int(k_done)
         stacked = {k: np.asarray(v, np.float64)
                    for k, v in jax.device_get(stacked).items()}

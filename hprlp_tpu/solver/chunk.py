@@ -1,6 +1,6 @@
 """The jit-compiled hot path: Halpern Peaceman-Rachford iteration chunks.
 
-TPU-native replacement for the reference's CUDA-Graph-captured iteration
+Replacement for the reference's CUDA-Graph-captured iteration
 pair + batched device reductions (reference: src/HPRLP.cu:99-114 graph
 capture, src/cuda_kernels/HPR_cuda_kernels.cu:203-295 zx/y update kernels,
 src/main_iterate.cu:229-309 compute_residuals): the whole stretch of
@@ -36,6 +36,9 @@ import jax.numpy as jnp
 from ..ops.device_problem import LpDevice
 from ..ops.sparse import spmv
 from .scaling import ScalingInfo
+
+# Full-precision reductions: on GPUs an f32 dot may otherwise run in TF32.
+_dot = functools.partial(jnp.dot, precision=jax.lax.Precision.HIGHEST)
 
 
 @jax.tree_util.register_dataclass
@@ -94,7 +97,7 @@ def _fixed_point_gap_parts(lp, dx, dy):
     src/main_iterate.cu:486-515).  Returned raw so the host can apply the
     lambda_max negative-norm self-correction (:507-511)."""
     A_dx = spmv(lp.A, dx)
-    return jnp.dot(A_dx, dy), jnp.dot(dy, dy), jnp.dot(dx, dx)
+    return _dot(A_dx, dy), _dot(dy, dy), _dot(dx, dx)
 
 
 def _residual_metrics(lp: LpDevice, scal: ScalingInfo, x_bar, y_bar, z_bar,
@@ -112,9 +115,9 @@ def _residual_metrics(lp: LpDevice, scal: ScalingInfo, x_bar, y_bar, z_bar,
     viol = jnp.where(x_bar < lp.l, lp.l - x_bar,
                      jnp.where(x_bar > lp.u, x_bar - lp.u, 0.0))
     return {
-        "dot_c_xbar": jnp.dot(lp.c, x_bar),
-        "dot_yobj_ybar": jnp.dot(y_obj, y_bar),
-        "dot_xbar_zbar": jnp.dot(x_bar, z_bar),
+        "dot_c_xbar": _dot(lp.c, x_bar),
+        "dot_yobj_ybar": _dot(y_obj, y_bar),
+        "dot_xbar_zbar": _dot(x_bar, z_bar),
         "nrm_Rd": jnp.linalg.norm(Rd),
         "nrm_Rp": jnp.linalg.norm(Rp),
         "gap_dot": gap_dot,
@@ -124,95 +127,6 @@ def _residual_metrics(lp: LpDevice, scal: ScalingInfo, x_bar, y_bar, z_bar,
         "move_y": jnp.linalg.norm(y_bar - last_y),
         "nrm_lu_viol": jnp.linalg.norm(viol / scal.col_norm),
     }
-
-
-def _df64_chunk_iters(lp, x0, y0, last_x, last_y, sigma, lam_sigma,
-                      inner, n_iters):
-    """The WHOLE chunk's iterations in double-f32 pair arithmetic —
-    first (check-style), middle stretch, and final (check-style).
-
-    Same update equations as _x_half/_y_half; every vector op is
-    compensated (~2^-48 relative) and the SpMVs run the compensated lane
-    kernel.  Scalar work (Halpern factors) stays f64.
-
-    Why the CHECK iterations are in pairs too (round-4 finding): XLA's
-    TPU f64 emulation of the fused elementwise chains is only ~1e-11
-    accurate (measured max rel err of `x + sigma*(y - c)` on v5e), and
-    the sigma rescaling legitimately reaches 1e5-1e6 on structured LPs
-    (transport/staircase families) — amplifying that emulation noise
-    into a 1e-3..1e-5 KKT floor.  Two emulated check iterations per
-    chunk were enough to stall 1e-8 solves that converge in 2k
-    iterations on CPU native f64; in pairs the noise term is
-    sigma * 2^-48, well below 1e-8 tolerances.
-
-    Returns f64 arrays: (x_final, y_final, x_bar, y_bar, z_bar, y_obj,
-    x1, y1, x_bar1, y_bar1, inner) where the *1 values come from the
-    first iteration (for the post-restart gap measurement)."""
-    from ..ops import df64 as dd
-    from ..ops.sparse import spmv_pair
-
-    f64 = jnp.float64
-    c_p = dd.from64(lp.c)
-    l_p = dd.from64(lp.l)
-    u_p = dd.from64(lp.u)
-    AL_p = dd.from64(lp.AL)
-    AU_p = dd.from64(lp.AU)
-    lastx_p = dd.from64(last_x)
-    lasty_p = dd.from64(last_y)
-    sigma_p = dd.from64(sigma)
-    inv_sigma_p = dd.from64(1.0 / sigma)
-    lamsig_p = dd.from64(lam_sigma)
-    inv_lamsig_p = dd.from64(1.0 / lam_sigma)
-    zero_p = (jnp.float32(0.0), jnp.float32(0.0))
-
-    def x_half(xp, yp, f1p, f2p):
-        ATy = spmv_pair(lp.AT, yp)
-        z = dd.add(xp, dd.mul(dd.sub(ATy, c_p), sigma_p))
-        xb = dd.clip(z, l_p, u_p)
-        xhat = dd.sub(dd.scale2(xb), xp)
-        x_new = dd.add(dd.mul(xhat, f2p), dd.mul(lastx_p, f1p))
-        return x_new, xhat, xb, z
-
-    def y_half(yp, xhat, f1p, f2p):
-        Ax = spmv_pair(lp.A, xhat)
-        v = dd.sub(Ax, dd.mul(yp, lamsig_p))
-        d = dd.maximum(dd.sub(AL_p, v),
-                       dd.minimum(dd.sub(AU_p, v), zero_p))
-        yb = dd.mul(d, inv_lamsig_p)
-        yhat = dd.sub(dd.scale2(yb), yp)
-        y_new = dd.add(dd.mul(yhat, f2p), dd.mul(lasty_p, f1p))
-        return y_new, yb, dd.add(v, d)
-
-    def factors(inner):
-        f1 = 1.0 / (inner.astype(f64) + 2.0)
-        return dd.from64(f1), dd.from64(1.0 - f1)
-
-    # First iteration (check-style: bars kept for the gap measurement).
-    f1p, f2p = factors(inner)
-    x1p, xhat, xb1, _ = x_half(dd.from64(x0), dd.from64(y0), f1p, f2p)
-    y1p, yb1, _ = y_half(dd.from64(y0), xhat, f1p, f2p)
-    inner = inner + 1
-
-    def body(_, carry):
-        xp, yp, inner = carry
-        f1p, f2p = factors(inner)
-        x_new, xhat, _, _ = x_half(xp, yp, f1p, f2p)
-        y_new, _, _ = y_half(yp, xhat, f1p, f2p)
-        return x_new, y_new, inner + 1
-
-    xp, yp, inner = jax.lax.fori_loop(1, n_iters - 1, body,
-                                      (x1p, y1p, inner))
-
-    # Final iteration (check-style).
-    f1p, f2p = factors(inner)
-    x_fp, xhat, xbp, zp = x_half(xp, yp, f1p, f2p)
-    zbar_p = dd.mul(dd.sub(xbp, zp), inv_sigma_p)
-    y_fp, ybp, yobj_p = y_half(yp, xhat, f1p, f2p)
-    inner = inner + 1
-
-    return (dd.to64(x_fp), dd.to64(y_fp), dd.to64(xbp), dd.to64(ybp),
-            dd.to64(zbar_p), dd.to64(yobj_p), dd.to64(xp), dd.to64(yp),
-            dd.to64(xb1), dd.to64(yb1), inner)
 
 
 @jax.jit
@@ -239,61 +153,37 @@ def run_chunk(lp: LpDevice, scal: ScalingInfo, state: SolverState,
     last_y = jnp.where(restart_flag, state.y_bar, state.last_y)
     inner = jnp.where(restart_flag, 0, state.inner)
 
-    # f64 on the lane backend: ALL iterations (check-style first/last
-    # and the middle stretch) run on double-f32 pairs (ops/df64.py) —
-    # XLA's TPU f64 emulation is slow AND its fused elementwise chains
-    # are only ~1e-11 accurate, which large sigmas amplify into a KKT
-    # floor (see _df64_chunk_iters).  Per-chunk reductions stay in
-    # plain f64 (dots/norms measured accurate to ~1e-15).  NOT on CPU:
-    # there f64 is native (faster than pairs), and XLA:CPU's codegen
-    # reassociates through the error-free transformations (measured:
-    # quick_two_sum's hi output is not fl(s+e) under jit on CPU,
-    # breaking the compensation at f32 level; the TPU backend compiles
-    # the same HLO faithfully — equivalence verified to 1e-14
-    # on-device).
-    use_df64 = (dtype == jnp.float64 and lp.A.backend == "lane"
-                and lp.A.mesh is None
-                and (lp.A.lane_vals_lo is not None
-                     or lp.A.thin_vals_lo is not None)
-                and jax.default_backend() != "cpu")
-    if use_df64:
-        (x_f, y_f, x_bar, y_bar, z_bar, y_obj, x2, y2, x_bar1, y_bar1,
-         inner) = _df64_chunk_iters(lp, x, y, last_x, last_y, sigma,
-                                    lam_sigma, inner, n_iters)
-        fs_dot, fs_dy2, fs_dx2 = _fixed_point_gap_parts(
-            lp, x - x_bar1, y - y_bar1)
-    else:
-        # --- first iteration (check-style: also produces bars for the
-        # post-restart gap measurement) ---
-        fact1, fact2 = _halpern_factors(inner, dtype)
-        x1, x_hat, x_bar1, _ = _x_half(lp, x, y, last_x, sigma, fact1,
-                                       fact2)
-        y1, y_bar1, _ = _y_half(lp, y, x_hat, last_y, lam_sigma, fact1,
-                                fact2)
-        fs_dot, fs_dy2, fs_dx2 = _fixed_point_gap_parts(
-            lp, x - x_bar1, y - y_bar1)
-        inner = inner + 1
+    # --- first iteration (check-style: also produces bars for the
+    # post-restart gap measurement) ---
+    fact1, fact2 = _halpern_factors(inner, dtype)
+    x1, x_hat, x_bar1, _ = _x_half(lp, x, y, last_x, sigma, fact1,
+                                   fact2)
+    y1, y_bar1, _ = _y_half(lp, y, x_hat, last_y, lam_sigma, fact1,
+                            fact2)
+    fs_dot, fs_dy2, fs_dx2 = _fixed_point_gap_parts(
+        lp, x - x_bar1, y - y_bar1)
+    inner = inner + 1
 
-        # --- middle iterations: pure normal updates, zero host
-        # involvement ---
-        def body(_, carry):
-            x, y, inner = carry
-            f1, f2 = _halpern_factors(inner, dtype)
-            x_new, x_hat, _, _ = _x_half(lp, x, y, last_x, sigma, f1, f2)
-            y_new, _, _ = _y_half(lp, y, x_hat, last_y, lam_sigma, f1, f2)
-            return x_new, y_new, inner + 1
-
-        x2, y2, inner = jax.lax.fori_loop(1, n_iters - 1, body,
-                                          (x1, y1, inner))
-
-        # --- final iteration (check-style) ---
+    # --- middle iterations: pure normal updates, zero host
+    # involvement ---
+    def body(_, carry):
+        x, y, inner = carry
         f1, f2 = _halpern_factors(inner, dtype)
-        x_f, x_hat, x_bar, z_tmp = _x_half(lp, x2, y2, last_x, sigma, f1,
-                                           f2)
-        z_bar = (x_bar - z_tmp) / sigma
-        y_f, y_bar, y_obj = _y_half(lp, y2, x_hat, last_y, lam_sigma, f1,
-                                    f2)
-        inner = inner + 1
+        x_new, x_hat, _, _ = _x_half(lp, x, y, last_x, sigma, f1, f2)
+        y_new, _, _ = _y_half(lp, y, x_hat, last_y, lam_sigma, f1, f2)
+        return x_new, y_new, inner + 1
+
+    x2, y2, inner = jax.lax.fori_loop(1, n_iters - 1, body,
+                                      (x1, y1, inner))
+
+    # --- final iteration (check-style) ---
+    f1, f2 = _halpern_factors(inner, dtype)
+    x_f, x_hat, x_bar, z_tmp = _x_half(lp, x2, y2, last_x, sigma, f1,
+                                       f2)
+    z_bar = (x_bar - z_tmp) / sigma
+    y_f, y_bar, y_obj = _y_half(lp, y2, x_hat, last_y, lam_sigma, f1,
+                                f2)
+    inner = inner + 1
 
     dx = x2 - x_bar
     dy = y2 - y_bar

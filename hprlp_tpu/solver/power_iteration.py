@@ -31,6 +31,8 @@ def power_method(lp: LpDevice, tol: float = POWER_METHOD_TOL,
     key = jax.random.PRNGKey(seed)
     z0 = jax.random.normal(key, (m,), dtype) + 1e-8
     eps = jnp.finfo(dtype).eps
+    # Full precision: on GPUs an f32 dot may otherwise run in TF32.
+    dot = functools.partial(jnp.dot, precision=jax.lax.Precision.HIGHEST)
 
     def cond(carry):
         i, _, _, _, done = carry
@@ -38,10 +40,10 @@ def power_method(lp: LpDevice, tol: float = POWER_METHOD_TOL,
 
     def body(carry):
         i, z, lam, err, _ = carry
-        q = z * jax.lax.rsqrt(jnp.dot(z, z) + eps)
+        q = z * jax.lax.rsqrt(dot(z, z) + eps)
         z_new = spmv(lp.A, spmv(lp.AT, q))
         check = (i % POWER_METHOD_CHECK_EVERY) == 0
-        lam_new = jnp.where(check, jnp.dot(q, z_new), lam)
+        lam_new = jnp.where(check, dot(q, z_new), lam)
         err_new = jnp.where(check,
                             jnp.linalg.norm(z_new - lam_new * q), err)
         done = jnp.logical_and(check, err_new < tol)

@@ -1,9 +1,9 @@
-"""Mixed-precision solve (precision="mixed"): f32 LaneELL-speed stages +
-f64 host stitching + a warm-started f64 tail for the final stretch.
+"""Refined solve (precision="mixed"): zoomed residual stages in f32 or f64,
+f64 host stitching, and for f32 stages a warm-started f64 tail.
 
-TPUs have no native f64, so a straight f64 solve pays XLA's emulation and
-loses the Pallas fast path (round-1 gap: 1e-8 solves ran at gather speed).
-The scheme here:
+f32 iterations are the fast mode on a GPU but plateau at their round-off
+floor; precision="auto" below 1e-5 runs this driver with native f64
+stages.  The scheme with f32 stages:
 
 1. Solve in f32 with stall detection (the f32 iterates plateau at their
    round-off floor, typically 1e-5..1e-6 true KKT).
@@ -17,13 +17,12 @@ The scheme here:
    Each stage improves the true f64-measured KKT ~10-30x until the f32
    measurement floor binds (~1e-6).
 3. If the target is below what stages can certify, finish with an
-   f64 (XLA-emulated) solve WARM-STARTED at the refined point: the tail
-   typically needs a few hundred iterations, so its slow per-iteration
-   cost is amortised away.
+   f64 solve WARM-STARTED at the refined point: the tail typically needs
+   a few hundred iterations, so its slower per-iteration cost is
+   amortised away.
 
-No reference counterpart: the reference solves in f64 end-to-end on
-hardware that has it (src/HPRLP.cu).  SURVEY §7.2 hard part 1 / VERDICT
-r1 "fast high-precision mode".
+No reference counterpart: the reference solves in f64 end-to-end
+(src/HPRLP.cu).  SURVEY §7.2 hard part 1.
 """
 
 from __future__ import annotations
@@ -82,10 +81,9 @@ def solve_refined(problem: LpProblem, params: Parameters,
     stage_params.precision = "f64" if f64_stages else "f32"
     stage_params.use_presolve = False  # applied upstream by the caller
     if f64_stages:
-        # df64 stages aim straight at the target: well-behaved instances
+        # f64 stages aim straight at the target: well-behaved instances
         # finish in stage 0 exactly like a direct f64 solve; degenerate
-        # ones plateau at the pair floor (~1e-6) and hand over to a
-        # zoomed stage.  The stall window must outlast the slow marginal
+        # ones plateau and hand over to a zoomed stage.  The stall window must outlast the slow marginal
         # new-bests observed on the transport plateau (~15k iterations
         # apart at 0.7x steps).
         stage_params.stop_tol = target
@@ -169,8 +167,8 @@ def solve_refined(problem: LpProblem, params: Parameters,
                 problem.c)
             # f64 stages warm-start the sub's DUAL at the incumbent y:
             # the sub shares the parent's dual geometry (cost unchanged),
-            # and on degenerate instances a cold dual never re-forms on
-            # TPU (measured: the multicommodity stage-1 sub stalls at
+            # and on degenerate instances a cold dual may never re-form
+            # (measured: the multicommodity stage-1 sub stalls at
             # gap 0.3 cold vs 2.4e-3 y-warm — and stages compound, so a
             # mediocre warm stage still divides the true KKT by ~zoom).
             # Retries must change something MATERIAL: the scaling
@@ -199,6 +197,7 @@ def solve_refined(problem: LpProblem, params: Parameters,
         total_iter += res.iter
         restarts += res.restarts
         alg_time += res.time
+        out.loop_compiles += res.loop_compiles
         out.setup_time += res.setup_time
         out.scaling_time += res.scaling_time
         out.power_time += res.power_time
@@ -288,9 +287,7 @@ def solve_refined(problem: LpProblem, params: Parameters,
         # iterations; a tail that has made no new best for 10 checkpoints
         # is the degenerate-stall case and should fall back to cold.
         tail_params.stall_window = max(1500, 10 * params.check_iter)
-        # Reuse the stage's tuned backend: the df64 lane kernel keeps
-        # the tail at lane speed instead of re-probing (or worse,
-        # falling back to gather).
+        # Reuse the stage's tuned backend instead of re-probing.
         if stage_params.spmv_backend != "auto":
             tail_params.spmv_backend = stage_params.spmv_backend
         for attempt, (xw, yw) in enumerate(((x, y), (None, None))):
@@ -309,6 +306,7 @@ def solve_refined(problem: LpProblem, params: Parameters,
             total_iter += res_t.iter
             restarts += res_t.restarts
             alg_time += res_t.time
+            out.loop_compiles += res_t.loop_compiles
             yt, zt = _project_duals(problem, A, res_t.y, res_t.z)
             mt = problem.kkt_error(res_t.x, yt, zt)
             note_milestones(mt["kkt"], alg_time)

@@ -1,4 +1,4 @@
-/* hpmps — native MPS/QPS reader for the TPU HPR-LP framework.
+/* hpmps — native MPS/QPS reader for the HPR-LP framework.
  *
  * Role parity with the reference C++ reader (reference: src/mps_reader.cpp
  * readqps/coo_to_csr/build_model_from_mps), re-implemented from scratch:

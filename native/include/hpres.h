@@ -1,4 +1,4 @@
-/* hpres — native LP presolver for the TPU HPR-LP framework.
+/* hpres — native LP presolver for the HPR-LP framework.
  *
  * Role parity with the reference's embedded PSLP presolver
  * (reference: third_party/PSLP, src/pslp_integration.cpp), re-designed and

@@ -28,13 +28,34 @@
 #include <unordered_map>
 #include <vector>
 
+#include <sys/mman.h>
 #include <sys/stat.h>
 
-// lane_fill.cpp: parallel first-touch of fresh allocations (page-zero
-// faulting is single-thread-bound on the target VMs).
-extern "C" void hprlp_parallel_touch(char *, int64_t);
-
 namespace {
+
+/* Pre-fault a fresh buffer in parallel with hugepage advice: page-zero
+ * faulting is single-thread-bound on some VMs, while a parallel touch
+ * with transparent hugepages faults 512x fewer pages concurrently. */
+void parallel_touch(char *p, int64_t bytes) {
+    if (!p || bytes <= 0) return;
+    const uintptr_t a = ((uintptr_t)p + 4095) & ~(uintptr_t)4095;
+    const uintptr_t e = ((uintptr_t)p + bytes) & ~(uintptr_t)4095;
+    if (e > a) madvise((void *)a, e - a, MADV_HUGEPAGE);
+    const int64_t pages = (bytes + 4095) / 4096;
+    unsigned hw = std::thread::hardware_concurrency();
+    const int T = (int)std::min<int64_t>(
+        std::min<unsigned>(hw ? hw : 1, 8),
+        std::max<int64_t>(1, pages / 1024));
+    std::vector<std::thread> ts;
+    for (int t = 0; t < T; ++t) {
+        const int64_t lo = pages * t / T, hi = pages * (t + 1) / T;
+        if (lo >= hi) continue;
+        ts.emplace_back([=] {
+            for (int64_t i = lo; i < hi; ++i) p[i * 4096] = 0;
+        });
+    }
+    for (auto &th : ts) th.join();
+}
 
 constexpr double INF = std::numeric_limits<double>::infinity();
 constexpr double NaN = std::numeric_limits<double>::quiet_NaN();
@@ -65,7 +86,7 @@ class LineReader {
                 const size_t sz = (size_t)st.st_size;
                 mem_.reset(new (std::nothrow) char[sz]);
                 if (mem_) {
-                    hprlp_parallel_touch(mem_.get(), (int64_t)sz);
+                    parallel_touch(mem_.get(), (int64_t)sz);
                     mem_len_ = std::fread(mem_.get(), 1, sz, fp);
                     mem_mode_ = true;
                 }
@@ -770,10 +791,9 @@ hpmps_handle *hpmps_read_ex(const char *path, int ignore_quadobj,
     // ~25 bytes of text; growth reallocations of three multi-GB vectors
     // were a measurable slice of giant parses.  Gz files assume ~4x
     // compression.  Cap so a wild guess can't exhaust memory.  The
-    // reserved capacity is PRE-FAULTED in parallel (hprlp_parallel_touch,
-    // lane_fill.cpp): page-zero faulting is single-thread-bound on the
-    // target VMs, and the parse loop's push_backs otherwise fault the
-    // whole span serially at ~130 MB/s.
+    // reserved capacity is PRE-FAULTED in parallel (parallel_touch):
+    // page-zero faulting is single-thread-bound on some VMs, and the
+    // parse loop's push_backs otherwise fault the whole span serially.
     {
         struct stat st;
         if (stat(path, &st) == 0 && st.st_size > (1 << 20)) {
@@ -785,12 +805,11 @@ hpmps_handle *hpmps_read_ex(const char *path, int ignore_quadobj,
             p.rows_i.reserve(est);
             p.cols_j.reserve(est);
             p.vals.reserve(est);
-            extern void hprlp_parallel_touch(char *, int64_t);
-            hprlp_parallel_touch((char *)p.rows_i.data(),
+            parallel_touch((char *)p.rows_i.data(),
                                  (int64_t)(est * sizeof(int64_t)));
-            hprlp_parallel_touch((char *)p.cols_j.data(),
+            parallel_touch((char *)p.cols_j.data(),
                                  (int64_t)(est * sizeof(int64_t)));
-            hprlp_parallel_touch((char *)p.vals.data(),
+            parallel_touch((char *)p.vals.data(),
                                  (int64_t)(est * sizeof(double)));
         }
     }

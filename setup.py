@@ -3,7 +3,7 @@
 Parity goal: the reference ships a pip-installable package that builds
 its shared library during the wheel build (reference:
 bindings/python/setup.py + CMake).  Here the native components (presolver
-+ MPS reader + lane scheduler, native/Makefile) are compiled with `make`
++ MPS reader, native/Makefile) are compiled with `make`
 and the resulting libhprlp_native.so is packaged as
 hprlp_tpu/_native/libhprlp_native.so, which hprlp_tpu.native checks
 first at import time (source checkouts keep using native/lib/).

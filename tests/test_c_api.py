@@ -72,7 +72,7 @@ class _Results(ct.Structure):
 
 def test_ctypes_consumer_mps():
     # The C ABI worker inherits this process's environment; force the
-    # CPU backend (the tests must not grab the TPU).
+    # CPU backend (the tests must not grab an accelerator).
     os.environ.setdefault("HPRLP_TPU_PYTHON", sys.executable)
     os.environ["HPRLP_TPU_ROOT"] = REPO
     os.environ["JAX_PLATFORMS"] = "cpu" 

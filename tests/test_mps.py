@@ -12,7 +12,8 @@ import pytest
 
 from hprlp_tpu.io.mps import MpsFormatError, read_mps
 
-DEMO_MPS = "/root/reference/data/model.mps"
+DEMO_MPS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "data", "model.mps")
 
 
 def _write(tmp_path, text, name="t.mps"):
@@ -326,11 +327,12 @@ def test_fixed_format_native_reader(tmp_path):
     np.testing.assert_allclose(a.c, b.c)
 
 
-def test_fixed_format_demo_equivalence():
-    # The reference demo file is valid in BOTH formats (its names fit the
-    # fixed columns): parses must agree.
+def test_fixed_format_demo_equivalence(tmp_path):
+    # The fixed-column file _write_fixed_demo writes is the demo LP with
+    # names that only fixed columns can hold: its fixed parse must agree
+    # with the free parse of the demo file.
     a = read_mps(DEMO_MPS)
-    b = read_mps(DEMO_MPS, mps_format="fixed")
+    b = read_mps(_write_fixed_demo(tmp_path), mps_format="fixed")
     np.testing.assert_allclose(a.A.toarray(), b.A.toarray())
     np.testing.assert_allclose(a.AU, b.AU)
     np.testing.assert_allclose(a.c, b.c)
@@ -477,7 +479,7 @@ FIXTURES = os.path.join(os.path.dirname(__file__), os.pardir, "data",
 ])
 def test_committed_fixtures_solve(name, fmt, opt):
     """Committed MPS fixtures with RANGES / fixed-format / bound-card
-    edge cases (BASELINE protocol stand-ins): both readers agree and the
+    edge cases (benchmark-suite stand-ins): both readers agree and the
     solve reaches the hand-computed optimum."""
     path = os.path.join(FIXTURES, name)
     prob = read_mps(path, mps_format=fmt)

@@ -1,8 +1,8 @@
 """REAL multi-process (multi-host-shaped) validation: two OS processes
 joined via jax.distributed, each owning 2 virtual CPU devices, solving
 the same LP over the 4-device global mesh (parallel/distributed.py +
-shard_problem).  This exercises exactly the code path a multi-host TPU
-slice uses — process-spanning mesh, make_array_from_callback shard
+shard_problem).  This exercises exactly the code path a multi-host GPU
+cluster uses — process-spanning mesh, make_array_from_callback shard
 materialisation, cross-process collectives — on CPU transport."""
 
 import json

@@ -1,9 +1,9 @@
-"""Multi-chip sharding tests on the virtual 8-device CPU mesh.
+"""Multi-device sharding tests on the virtual 8-device CPU mesh.
 
 Validates the GSPMD row-block partition of A/A^T (single-LP path) and the
 batch-axis sharding (batched path) produce the same results as
-single-device runs.  Real-hardware multi-chip execution is validated by
-the driver's dryrun_multichip; these tests pin the numerics.
+single-device runs.  On cards, `python chip_smoke.py --four-cards` runs
+the same path at full size; these tests pin the numerics.
 """
 
 import numpy as np
@@ -62,6 +62,26 @@ class TestShardedSingleLp:
             assert "row_multiple" in str(e)
 
 
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_gspmd_mesh_solve_matches_single_device(n_dev):
+    """The row-block GSPMD path with gather buckets (the multi-device
+    path) solves like one device, and every bucket spans the mesh."""
+    prob = random_lp(30 + n_dev, m=72, n=96, density=0.15)
+    kw = dict(verbose=False, stop_tol=1e-6, use_presolve=False)
+    r1 = solve_problem(prob, Parameters(**kw))
+    rn = solve_problem(prob, Parameters(mesh_shape=n_dev, **kw))
+    assert r1.status == rn.status == "OPTIMAL"
+    assert rn.spmv_backend == "gather"
+    assert rn.primal_obj == pytest.approx(r1.primal_obj, rel=1e-5,
+                                          abs=1e-5)
+    np.testing.assert_allclose(rn.x, r1.x, atol=1e-4)
+    lp, _ = build_device_problem(prob, row_multiple=8 * n_dev,
+                                 vec_multiple=256 * n_dev)
+    sharded = shard_problem(lp, make_mesh(n_dev))
+    for b in sharded.A.buckets + sharded.AT.buckets:
+        assert len(b.vals.sharding.device_set) == n_dev
+
+
 class TestShardedBatched:
     def test_batched_mesh_matches_single(self):
         rng = np.random.default_rng(9)
@@ -86,55 +106,6 @@ class TestShardedBatched:
                           np.ones((2, 3)), np.zeros((2, 3)),
                           np.ones((2, 3)),
                           params=Parameters(verbose=False, mesh_shape=NDEV))
-
-
-class TestShardedLane:
-    """Shard-aware LaneELL: chunk-partitioned Pallas kernel under
-    shard_map + psum (interpret mode on the CPU mesh)."""
-
-    def test_lane_spmv_sharded_matches_dense(self):
-        import dataclasses as dc
-
-        from hprlp_tpu.ops.sparse import spmv, with_backend
-
-        prob = random_lp(31, m=96, n=140, density=0.15)
-        lp, _ = build_device_problem(prob, row_multiple=8 * NDEV,
-                                     vec_multiple=256 * NDEV)
-        mesh = make_mesh(NDEV)
-        sharded = shard_problem(lp, mesh)
-        assert sharded.A.mesh is not None
-
-        A_lane = with_backend(sharded.A, "lane")
-        assert A_lane.backend == "lane"
-        # Chunk axes (either hybrid tile set) padded to the mesh size
-        # and sharded.
-        assert (A_lane.lane_idx2 is not None
-                or A_lane.thin_idx2 is not None)
-        for arr in (A_lane.lane_idx2, A_lane.thin_idx2):
-            if arr is not None:
-                assert arr.shape[0] % NDEV == 0
-
-        import jax.numpy as jnp
-        x = jnp.asarray(np.random.default_rng(0).normal(size=lp.A.ncols),
-                        lp.c.dtype)
-        y_lane = np.asarray(spmv(A_lane, x))
-        y_ref = np.asarray(spmv(lp.A, x))  # unsharded gather backend
-        np.testing.assert_allclose(y_lane, y_ref, rtol=2e-5, atol=2e-5)
-
-    def test_sharded_solve_keeps_lane_backend(self):
-        prob = random_lp(32, m=60, n=80, density=0.2)
-        p1 = Parameters(verbose=False, stop_tol=1e-5, use_presolve=False,
-                        precision="f32")
-        r1 = solve_problem(prob, p1)
-        p8 = Parameters(verbose=False, stop_tol=1e-5, use_presolve=False,
-                        mesh_shape=NDEV, spmv_backend="lane",
-                        precision="f32")
-        r8 = solve_problem(prob, p8)
-        assert r8.spmv_backend == "lane"
-        assert r1.status == r8.status == "OPTIMAL"
-        assert r8.primal_obj == pytest.approx(r1.primal_obj, rel=1e-4,
-                                              abs=1e-4)
-        np.testing.assert_allclose(r8.x, r1.x, atol=5e-3)
 
 
 class TestDistributed:
@@ -174,49 +145,3 @@ class TestDistributed:
         a = np.random.default_rng(0).normal(size=(NDEV * 8, 16))
         g = jax.make_array_from_callback(a.shape, sh, lambda idx: a[idx])
         np.testing.assert_array_equal(np.asarray(g), a)
-
-
-class TestGiantMesh:
-    """Giant lane-first ingest COMPOSED with the mesh (round-4: BASELINE
-    config 5 at full scale): host scaling + chunk-sharded tile upload,
-    solved under shard_map with psum."""
-
-    def test_giant_mesh_builder_shards_tiles(self):
-        from hprlp_tpu.ops.device_problem import build_device_problem_giant
-
-        prob = random_lp(41, m=256, n=640, density=0.08)
-        lp, maps, scal, _s = build_device_problem_giant(
-            prob, mesh=make_mesh(NDEV))
-        assert lp.A.backend == lp.AT.backend == "lane"
-        for M in (lp.A, lp.AT):
-            assert M.mesh is not None
-            have = [t for t in (M.lane_idx2, M.thin_idx2) if t is not None]
-            assert have, "no lane tiles attached"
-            for t in have:
-                assert t.shape[0] % NDEV == 0
-                assert len(t.sharding.device_set) == NDEV
-        # Vectors and scaling factors replicated over the mesh.
-        assert lp.c.sharding.is_fully_replicated
-        assert scal.row_norm.sharding.is_fully_replicated
-        # Gather buckets are stubs (autotune skips on nnz=0).
-        assert lp.A.nnz == 0
-
-    def test_giant_mesh_solve_matches_single(self, monkeypatch):
-        from hprlp_tpu.solver import loop as loop_mod
-
-        # Small shapes: the CPU mesh runs the lane kernel in interpret
-        # mode, which is ~100x device speed.
-        prob = random_lp(42, m=96, n=128, density=0.1)
-        p1 = Parameters(verbose=False, stop_tol=1e-4, use_presolve=False)
-        r1 = solve_problem(prob, p1)
-
-        monkeypatch.setenv("HPRLP_GIANT_LANE_FIRST_NNZ", "100")
-        monkeypatch.setattr(loop_mod, "GIANT_LANE_FIRST_NNZ", 100)
-        p8 = Parameters(verbose=False, stop_tol=1e-4, use_presolve=False,
-                        mesh_shape=NDEV)
-        r8 = solve_problem(prob, p8)
-        assert r8.spmv_backend == "lane"
-        assert r1.status == r8.status == "OPTIMAL"
-        assert r8.primal_obj == pytest.approx(r1.primal_obj, rel=1e-3,
-                                              abs=1e-3)
-        np.testing.assert_allclose(r8.x, r1.x, atol=2e-2)

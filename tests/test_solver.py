@@ -131,7 +131,7 @@ def test_free_variables():
 
 
 def test_f32_precision_mode(demo_lp):
-    """The TPU fast path (f32) must reach the default 1e-4 tolerance."""
+    """The fast path (f32) must reach the default 1e-4 tolerance."""
     res = h.solve_problem(demo_lp, quiet_params(precision="f32",
                                                 stop_tol=1e-4))
     assert res.status == "OPTIMAL"
@@ -319,40 +319,38 @@ class TestInfeasibleUnbounded:
 
 
 class TestPrecisionRouting:
-    """auto-precision resolution (loop._route_precision) and the
-    regression where the routed value must actually reach resolve_dtype
-    through params (a dead local left 'auto' -> f32 on accelerators)."""
+    """auto-precision resolution (loop._route_precision against the
+    platform query) and the regression where the routed value must
+    actually reach resolve_dtype through params (a dead local left
+    'auto' -> f32 on the GPU)."""
 
     def test_route_precision_matrix(self):
         from hprlp_tpu import Parameters
         from hprlp_tpu.solver.loop import _route_precision
 
         p = Parameters(stop_tol=1e-8, precision="auto")
-        # 1e-8 on accelerators routes to the refinement driver (df64
+        # 1e-8 on the GPU routes to the refinement driver (native f64
         # stages — solve_problem also flips refine_stage_precision to
-        # "f64" for auto-routed solves).
-        assert _route_precision(p, "tpu") == "mixed"
+        # "f64" for auto-routed solves); the CPU solves f64 directly.
+        assert _route_precision(p, "gpu") == "mixed"
         assert _route_precision(p, "cpu") == "auto"
         p4 = Parameters(stop_tol=1e-4, precision="auto")
-        assert _route_precision(p4, "tpu") == "auto"
+        assert _route_precision(p4, "gpu") == "auto"
         pm = Parameters(stop_tol=1e-8, precision="mixed")
-        assert _route_precision(pm, "tpu") == "mixed"
+        assert _route_precision(pm, "gpu") == "mixed"
+        p64 = Parameters(stop_tol=1e-8, precision="f64")
+        assert _route_precision(p64, "gpu") == "f64"
 
     def test_routed_precision_reaches_resolve_dtype(self, monkeypatch):
-        import jax
-        import jax.numpy as jnp
-
         from hprlp_tpu import Parameters
         from hprlp_tpu.solver import loop as loop_mod
 
-        # Pretend the backend is an accelerator; capture what
-        # _solve_problem_impl receives.
-        monkeypatch.setattr(loop_mod.jax, "default_backend",
-                            lambda: "tpu")
+        # Pretend the platform is a GPU; capture what the refinement
+        # driver receives.
+        monkeypatch.setattr(loop_mod, "platform", lambda: "gpu")
         seen = {}
 
-        def fake_impl(problem, params, _device_data, x0, y0, sigma0=None,
-                      _giant_ingest=None):
+        def fake_impl(problem, params, _device_data, x0, y0, sigma0=None):
             seen["precision"] = params.precision
             from hprlp_tpu.results import Results
             return Results()
@@ -373,6 +371,27 @@ class TestPrecisionRouting:
             prob, Parameters(stop_tol=1e-8, precision="auto"))
         assert seen["precision"] == "mixed"
         assert seen["stage_precision"] == "f64"
+
+    @pytest.mark.parametrize("precision,plat,want", [
+        ("auto", "cpu", "float64"), ("auto", "gpu", "float32"),
+        ("f64", "gpu", "float64"), ("f32", "cpu", "float32"),
+        ("mixed", "cpu", "float64"), ("mixed", "gpu", "float32"),
+    ])
+    def test_resolve_dtype_per_platform(self, monkeypatch, precision,
+                                        plat, want):
+        """Both platforms have native f64: f64 is honoured everywhere,
+        and auto resolves to f64 on the CPU, f32 on the GPU."""
+        import jax
+
+        from hprlp_tpu.solver import loop as loop_mod
+
+        monkeypatch.setattr(loop_mod, "platform", lambda: plat)
+        prior = bool(jax.config.jax_enable_x64)
+        try:
+            dt = loop_mod.resolve_dtype(Parameters(precision=precision))
+        finally:
+            jax.config.update("jax_enable_x64", prior)
+        assert np.dtype(dt).name == want
 
 
 class TestInputValidation:
@@ -420,9 +439,8 @@ class TestInputValidation:
 
 
 def test_staged_scaling_matches_fused_composition():
-    """scale_problem runs one jit per matrix pass (a fused program
-    crashes the TPU worker at 100M nnz — scaling.py note); the staged
-    result must match the fused scale_matrix composition to fp
+    """scale_problem runs one jit per matrix pass (scaling.py note); the
+    staged result must match the fused scale_matrix composition to fp
     reassociation tolerance."""
     import jax
     import jax.numpy as jnp
@@ -446,226 +464,6 @@ def test_staged_scaling_matches_fused_composition():
     _, _, v_staged = to_coo(scaled.A)
     _, _, v_fused = to_coo(A_f)
     np.testing.assert_allclose(v_staged, v_fused, rtol=1e-12)
-
-
-def test_host_scaling_matches_device_pipeline():
-    """The giant lane-first path's HOST scaling (solver/host_scaling.py)
-    computes the same factors, scaled matrix and scalars as the device
-    pipeline to f64 precision."""
-    import jax
-    import jax.numpy as jnp
-
-    from hprlp_tpu.ops.device_problem import build_device_problem
-    from hprlp_tpu.ops.sparse import to_coo
-    from hprlp_tpu.solver.host_scaling import host_scale
-    from hprlp_tpu.solver.scaling import scale_problem
-    from tests.conftest import random_lp
-
-    prob = random_lp(23, m=70, n=110, density=0.12)
-    A = prob.A.tocsr()
-    A.sum_duplicates()
-    AT = A.T.tocsr()
-
-    lp, maps = build_device_problem(prob, dtype=jnp.float64)
-    _scaled, info_dev = scale_problem(lp)
-    av, atv, AL, AU, l, u, c, info = host_scale(
-        A, AT, prob.AL, prob.AU, prob.l, prob.u, prob.c)
-
-    np.testing.assert_allclose(
-        np.asarray(info_dev.row_norm)[maps.row_pos], info.row_norm,
-        rtol=1e-10)
-    np.testing.assert_allclose(
-        np.asarray(info_dev.col_norm)[maps.col_pos], info.col_norm,
-        rtol=1e-10)
-    for k in ("b_scale", "c_scale", "norm_b", "norm_c",
-              "norm_b_org", "norm_c_org"):
-        np.testing.assert_allclose(float(getattr(info_dev, k)),
-                                   getattr(info, k), rtol=1e-10)
-    np.testing.assert_allclose(np.asarray(_scaled.AL)[maps.row_pos], AL,
-                               rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(_scaled.c)[maps.col_pos], c,
-                               rtol=1e-10, atol=1e-12)
-    # Scaled matrix values (padded COO of the device result vs host CSR).
-    rows_p, cols_p, v_dev = to_coo(_scaled.A)
-    inv_r = np.full(_scaled.A.nrows, -1)
-    inv_r[maps.row_pos] = np.arange(prob.m)
-    inv_c = np.full(_scaled.A.ncols, -1)
-    inv_c[maps.col_pos] = np.arange(prob.n)
-    D_dev = sp.coo_matrix((v_dev, (inv_r[rows_p], inv_c[cols_p])),
-                          shape=A.shape).toarray()
-    D_host = sp.csr_matrix((av, A.indices, A.indptr), shape=A.shape).toarray()
-    np.testing.assert_allclose(D_dev, D_host, rtol=1e-10, atol=1e-12)
-
-
-def test_host_row_reduce_trailing_empty_rows():
-    """Regression (round-3 advisor): clip-based reduceat dropped the last
-    non-empty row's final entry when trailing rows were empty
-    (indptr=[0,2,4,4] gave [3,3,0] instead of [3,7,0])."""
-    from hprlp_tpu.solver.host_scaling import _row_reduce
-
-    indptr = np.array([0, 2, 4, 4])
-    vals = np.array([1.0, 2.0, 3.0, 4.0])
-    np.testing.assert_array_equal(_row_reduce(indptr, vals, np.add),
-                                  [3.0, 7.0, 0.0])
-    np.testing.assert_array_equal(_row_reduce(indptr, vals, np.maximum),
-                                  [2.0, 4.0, 0.0])
-    # interior + leading empties
-    indptr2 = np.array([0, 0, 2, 2, 4])
-    np.testing.assert_array_equal(_row_reduce(indptr2, vals, np.add),
-                                  [0.0, 3.0, 0.0, 7.0])
-    # all-empty
-    np.testing.assert_array_equal(
-        _row_reduce(np.array([0, 0, 0]), np.zeros(0), np.add), [0.0, 0.0])
-
-
-def test_host_scaling_trailing_empty_row_and_col():
-    """host_scale factor parity with the device pipeline on an LP whose
-    LAST row of A and LAST column are empty (the advisor's failure
-    shape for the reduceat segments)."""
-    import jax.numpy as jnp
-
-    from hprlp_tpu.ops.device_problem import build_device_problem
-    from hprlp_tpu.solver.host_scaling import host_scale
-    from hprlp_tpu.solver.scaling import scale_problem
-    from tests.conftest import random_lp
-
-    prob = random_lp(5, m=40, n=60, density=0.15)
-    A = prob.A.tocsr().toarray()
-    A[-1, :] = 0.0   # empty last row
-    A[:, -1] = 0.0   # empty last column
-    Acsr = sp.csr_matrix(A)
-    prob2 = h.LpProblem.from_arrays(Acsr, prob.AL, prob.AU, prob.l, prob.u,
-                                    prob.c)
-    AT = Acsr.T.tocsr()
-
-    lp, maps = build_device_problem(prob2, dtype=jnp.float64)
-    _scaled, info_dev = scale_problem(lp)
-    av, atv, AL, AU, l, u, c, info = host_scale(
-        Acsr, AT, prob2.AL, prob2.AU, prob2.l, prob2.u, prob2.c)
-
-    np.testing.assert_allclose(
-        np.asarray(info_dev.row_norm)[maps.row_pos], info.row_norm,
-        rtol=1e-10)
-    np.testing.assert_allclose(
-        np.asarray(info_dev.col_norm)[maps.col_pos], info.col_norm,
-        rtol=1e-10)
-    for k in ("b_scale", "c_scale", "norm_b", "norm_c"):
-        np.testing.assert_allclose(float(getattr(info_dev, k)),
-                                   getattr(info, k), rtol=1e-10)
-
-
-def test_giant_lane_first_path_solves(monkeypatch):
-    """End-to-end through the giant lane-first ingest (host scaling +
-    lane-only upload), forced onto the CPU interpret-mode lane kernel via
-    the env override; result matches the standard pipeline."""
-    from hprlp_tpu.params import Parameters
-    from hprlp_tpu.solver import loop as loop_mod
-    from tests.conftest import random_lp
-
-    prob = random_lp(31, m=192, n=320, density=0.05)
-    p = Parameters(verbose=False, stop_tol=1e-4)
-
-    monkeypatch.setenv("HPRLP_GIANT_LANE_FIRST_NNZ", "100")
-    monkeypatch.setattr(loop_mod, "GIANT_LANE_FIRST_NNZ", 100)
-    r_giant = loop_mod.solve_problem(prob, p)
-
-    monkeypatch.setattr(loop_mod, "GIANT_LANE_FIRST_NNZ", 10**18)
-    r_std = loop_mod.solve_problem(prob, p)
-
-    assert r_giant.status == "OPTIMAL"
-    assert r_std.status == "OPTIMAL"
-    np.testing.assert_allclose(r_giant.primal_obj, r_std.primal_obj,
-                               rtol=1e-3)
-    np.testing.assert_allclose(r_giant.x, r_std.x, atol=2e-2)
-
-
-def test_host_scale_native_matches_numpy():
-    """The parallel C++ scaling passes (native/src/hpscale.cpp) reproduce
-    the numpy oracle's factors and scaled values to ~ulp level."""
-    from hprlp_tpu.native import get_lib
-    from hprlp_tpu.solver.host_scaling import host_scale
-    from tests.conftest import random_lp
-
-    if get_lib() is None or not hasattr(get_lib(), "hprlp_scale_matrix"):
-        pytest.skip("native library not built")
-
-    for seed, m, n, dens in ((11, 120, 90, 0.1), (12, 60, 200, 0.05)):
-        prob = random_lp(seed, m=m, n=n, density=dens)
-        A = prob.A.tocsr()
-        A.sum_duplicates()
-        # Exercise empty trailing row/col too.
-        D = A.toarray()
-        D[-1, :] = 0.0
-        D[:, -1] = 0.0
-        A = sp.csr_matrix(D)
-        AT = A.T.tocsr()
-        args = (A, AT, prob.AL, prob.AU, prob.l, prob.u, prob.c)
-        for flags in ((True,) * 4, (False, True, True, True),
-                      (True, False, True, False)):
-            cr, ruiz, pc, bc = flags
-            r_np = host_scale(*args, use_cr=cr, use_ruiz=ruiz, use_pc=pc,
-                              use_bc=bc, force_native=False)
-            r_nat = host_scale(*args, use_cr=cr, use_ruiz=ruiz, use_pc=pc,
-                               use_bc=bc, force_native=True)
-            for a, b in zip(r_np[:7], r_nat[:7]):
-                np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-300)
-            np.testing.assert_allclose(r_np[7].row_norm, r_nat[7].row_norm,
-                                       rtol=1e-12)
-            np.testing.assert_allclose(r_np[7].col_norm, r_nat[7].col_norm,
-                                       rtol=1e-12)
-
-
-def test_presolve_overlap_reuses_or_discards_giant_ingest(monkeypatch):
-    """Model.solve in the giant regime overlaps presolve with an
-    optimistic ingest of the ORIGINAL problem (model.py): when presolve
-    removes <=10% of nnz the overlapped ingest is REUSED and the original
-    model is solved; when it removes more, the ingest is discarded and
-    the reduced model is solved + postsolved.  Both paths must produce
-    the standard pipeline's optimum."""
-    import scipy.sparse as sp
-
-    from hprlp_tpu.model import Model
-    from hprlp_tpu.params import Parameters
-    from hprlp_tpu.problem import LpProblem
-    from hprlp_tpu.solver import loop as loop_mod
-    from tests.conftest import random_lp
-
-    monkeypatch.setenv("HPRLP_GIANT_LANE_FIRST_NNZ", "50")
-    monkeypatch.setattr(loop_mod, "GIANT_LANE_FIRST_NNZ", 50)
-
-    p = Parameters(verbose=False, stop_tol=1e-4, use_presolve=True)
-
-    # Case 1: nothing to presolve away (dense-ish rows, finite 2-sided
-    # bounds) -> reuse branch.
-    prob = random_lp(7, m=160, n=256, density=0.08)
-    res = Model(prob).solve(p)
-    ref = loop_mod.solve_problem(prob, Parameters(verbose=False,
-                                                  stop_tol=1e-4))
-    assert res.status == "OPTIMAL"
-    np.testing.assert_allclose(res.primal_obj, ref.primal_obj, rtol=1e-3)
-
-    # Case 2: a block of FIXED columns (l == u) and empty rows the
-    # presolver removes (>10% of nnz) -> discard-and-re-ingest branch.
-    base = random_lp(8, m=128, n=192, density=0.08)
-    A = base.A.tocsr()
-    n_fix = 96
-    extra = sp.random(128, n_fix, density=0.3, random_state=3,
-                      data_rvs=lambda k: np.random.default_rng(4).normal(
-                          size=k)).tocsr()
-    A2 = sp.hstack([A, extra]).tocsr()
-    fixed_vals = np.linspace(-1.0, 1.0, n_fix)
-    l2 = np.concatenate([base.l, fixed_vals])
-    u2 = np.concatenate([base.u, fixed_vals])
-    c2 = np.concatenate([base.c, np.ones(n_fix)])
-    shift = extra @ fixed_vals
-    prob2 = LpProblem.from_arrays(A2, base.AL + shift, base.AU + shift,
-                                  l2, u2, c2)
-    res2 = Model(prob2).solve(p)
-    p_nopre = Parameters(verbose=False, stop_tol=1e-4, use_presolve=False)
-    ref2 = loop_mod.solve_problem(prob2, p_nopre)
-    assert res2.status == "OPTIMAL"
-    np.testing.assert_allclose(res2.primal_obj, ref2.primal_obj,
-                               rtol=1e-3)
 
 
 def test_presolve_budget_clipped_to_time_limit(demo_lp, monkeypatch):
@@ -692,18 +490,13 @@ def test_presolve_budget_clipped_to_time_limit(demo_lp, monkeypatch):
 
 
 def test_refine_f64_stages_driver(demo_lp):
-    """The df64-stage refinement driver (what precision="auto" routes
-    1e-8 accelerator solves to): stage 0 is a direct f64 solve; on a
+    """The native-f64-stage refinement driver (what precision="auto"
+    routes GPU solves below 1e-5 to): stage 0 is a direct f64 solve; on a
     converging instance it certifies in one stage with the summed
-    algorithm clock (round-5)."""
-    prob = demo_lp
+    algorithm clock."""
     p = Parameters(verbose=False, stop_tol=1e-8, precision="mixed",
                    refine_stage_precision="f64")
-    res = h.solve_problem(prob, p) if hasattr(h, "solve_problem") else None
-    if res is None:
-        from hprlp_tpu.solver.loop import solve_problem
-
-        res = solve_problem(prob, p)
+    res = h.solve_problem(demo_lp, p)
     assert res.status == "OPTIMAL"
     assert res.residuals < 1e-8
     assert abs(res.primal_obj - (-26.4)) < 1e-6

@@ -109,106 +109,122 @@ def test_scaling_ops():
     np.testing.assert_allclose(S, ref, rtol=1e-12, atol=1e-12)
 
 
-class TestWindowMajorLayout:
-    """Invariants of the window-major LaneELL layout
-    (device_problem._layout_windows): positions valid and unique, width
-    buckets preserved, window boundaries aligned, SpMV exact."""
-
-    def _mk(self, seed, m, n, nnz_per_row):
-        import scipy.sparse as sp
-
-        from hprlp_tpu.problem import LpProblem
-
-        rng = np.random.default_rng(seed)
-        rows = np.repeat(np.arange(m), nnz_per_row)
-        cols = rng.integers(0, n, size=m * nnz_per_row)
-        vals = rng.normal(size=m * nnz_per_row)
-        A = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+def _structured_csr(kind, seed):
+    """Sparse matrices whose shapes stress the bucket plan."""
+    rng = np.random.default_rng(seed)
+    normal = lambda k: rng.normal(size=k)  # noqa: E731
+    if kind == "uniform":
+        return sp.random(96, 120, density=0.1, random_state=rng,
+                         data_rvs=normal).tocsr()
+    if kind == "skewed":
+        # Zipf-like row lengths: most rows short, a few hundreds wide.
+        m, n = 200, 600
+        deg = np.minimum(rng.zipf(1.7, m) * 2, n)
+        rows = np.repeat(np.arange(m), deg)
+        cols = rng.integers(0, n, size=len(rows))
+        A = sp.coo_matrix((normal(len(rows)), (rows, cols)),
+                          shape=(m, n)).tocsr()
         A.sum_duplicates()
-        x = rng.uniform(-1, 1, n)
-        return LpProblem.from_arrays(A, A @ x - 1, A @ x + 1, x - 2,
-                                     x + 2, rng.normal(size=n))
-
-    @pytest.mark.parametrize("row_multiple", [8, 24])
-    def test_multiwindow_layout_invariants(self, row_multiple):
-        from hprlp_tpu.ops.device_problem import build_device_problem
-        from hprlp_tpu.ops.lane_ell import WINDOW
-        from hprlp_tpu.ops.sparse import spmv
-
-        # n spans 3+ windows; m spans 2+ (WINDOW = 16384).
-        prob = self._mk(5, 2 * WINDOW + 1000, 3 * WINDOW + 500, 6)
-        lp, maps = build_device_problem(prob, row_multiple=row_multiple)
-        for pos, size in ((maps.row_pos, lp.A.nrows),
-                          (maps.col_pos, lp.A.ncols)):
-            assert pos.min() >= 0 and pos.max() < size
-            assert len(np.unique(pos)) == len(pos)
-        # Bucket widths still fit every member's nnz.
-        for M, nnz_per in ((lp.A, np.diff(prob.A.indptr)),
-                           (lp.AT, np.diff(prob.A.T.tocsr().indptr))):
-            for b in M.buckets:
-                counts = np.asarray(b.valid).sum(axis=1)
-                assert counts.max() <= b.width
-        # SpMV exact against scipy through the maps.
-        rng = np.random.default_rng(0)
-        x = rng.normal(size=prob.n)
-        xp = np.zeros(lp.A.ncols)
-        xp[maps.col_pos] = x
-        y = np.asarray(spmv(lp.A, jnp.asarray(xp, jnp.float32)))
-        ref = prob.A @ x
-        scale = np.abs(ref).max()
-        assert np.abs(y[maps.row_pos] - ref).max() / scale < 1e-5
-        yv = rng.normal(size=prob.m)
-        yp = np.zeros(lp.AT.ncols)
-        yp[maps.row_pos] = yv
-        z = np.asarray(spmv(lp.AT, jnp.asarray(yp, jnp.float32)))
-        refT = prob.A.T @ yv
-        scale = np.abs(refT).max()
-        assert np.abs(z[maps.col_pos] - refT).max() / scale < 1e-5
-
-    def test_shard_multiple_divisibility_kept_on_mesh_layout(self):
-        """row_multiple > 8 (mesh layouts) keeps every bucket's padded
-        row count divisible by row_multiple."""
-        from hprlp_tpu.ops.device_problem import build_device_problem
-        from hprlp_tpu.ops.lane_ell import WINDOW
-
-        prob = self._mk(6, WINDOW + 700, 2 * WINDOW + 300, 5)
-        lp, _ = build_device_problem(prob, row_multiple=16)
-        for M in (lp.A, lp.AT):
-            for b in M.buckets:
-                assert b.nrows % 16 == 0 or b.row_start + b.nrows == M.nrows
+        return A
+    if kind == "empty_rows_cols":
+        D = sp.random(80, 90, density=0.15, random_state=rng,
+                      data_rvs=normal).toarray()
+        D[::7, :] = 0.0
+        D[:, ::5] = 0.0
+        return sp.csr_matrix(D)
+    if kind == "dense_linking_column":
+        D = sp.random(150, 60, density=0.05, random_state=rng,
+                      data_rvs=normal).toarray()
+        D[:, 17] = normal(150)
+        return sp.csr_matrix(D)
+    if kind == "m_much_less_than_n":
+        return sp.random(6, 700, density=0.2, random_state=rng,
+                         data_rvs=normal).tocsr()
+    if kind == "n_much_less_than_m":
+        return sp.random(700, 6, density=0.3, random_state=rng,
+                         data_rvs=normal).tocsr()
+    raise ValueError(kind)
 
 
-def test_skewed_degree_layout_overhead():
-    """Power-law row/column degrees (realistic LPs) must not blow up the
-    LaneELL schedule: slot overhead stays bounded and SpMV stays exact."""
-    import scipy.sparse as sp
+STRUCTURES = ["uniform", "skewed", "empty_rows_cols", "dense_linking_column",
+              "m_much_less_than_n", "n_much_less_than_m"]
+# f32 sums of a few hundred terms stay near 1e-7 relative; f64 near 1e-16.
+GATHER_RTOL = {"float32": 1e-5, "float64": 1e-12}
 
-    from hprlp_tpu.ops.device_problem import build_device_problem
-    from hprlp_tpu.ops.lane_ell import WINDOW, schedule_lane_ell
-    from hprlp_tpu.ops.sparse import spmv, to_coo
-    from hprlp_tpu.problem import LpProblem
 
-    rng = np.random.default_rng(11)
-    m, n = 3000, 2 * WINDOW + 500
-    # Zipf-ish degrees: most rows tiny, a few hundreds wide.
-    deg = np.minimum((rng.zipf(1.7, m) * 3), 400)
-    rows = np.repeat(np.arange(m), deg)
-    cols = rng.integers(0, n, size=len(rows))
-    A = sp.coo_matrix((rng.normal(size=len(rows)), (rows, cols)),
-                      shape=(m, n)).tocsr()
-    A.sum_duplicates()
-    x0 = rng.uniform(-1, 1, n)
-    prob = LpProblem.from_arrays(A, A @ x0 - 1, A @ x0 + 1, x0 - 2,
-                                 x0 + 2, rng.normal(size=n))
-    lp, maps = build_device_problem(prob)
-    r, c, v = to_coo(lp.A)
-    t = schedule_lane_ell(r, c, v, lp.A.nrows, lp.A.ncols)
-    slots = t["idx2"].shape[0] * 16384
-    assert slots <= 12 * A.nnz + 6 * 16384, (slots, A.nnz)
-    x = rng.normal(size=n)
-    xp = np.zeros(lp.A.ncols)
+def _rel(a, b):
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind", STRUCTURES)
+def test_gather_spmv_matches_scipy(kind, dtype):
+    """Gather spmv of A and A^T through the padded/permuted layout equals
+    scipy's CSR product in f64."""
+    A = _structured_csr(kind, 3)
+    lp, maps = build_device_problem(_lp_of(A), dtype=jnp.dtype(dtype))
+    assert lp.A.backend == lp.AT.backend == "gather"
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=A.shape[1])
+    y = rng.normal(size=A.shape[0])
+    xp = np.zeros(lp.n)
     xp[maps.col_pos] = x
-    y = np.asarray(spmv(lp.A, jnp.asarray(xp, jnp.float32)))
-    ref = A @ x
-    scale = max(1.0, np.abs(ref).max())
-    assert np.abs(y[maps.row_pos] - ref).max() / scale < 1e-5
+    yp = np.zeros(lp.m)
+    yp[maps.row_pos] = y
+    Ax = np.asarray(spmv(lp.A, jnp.asarray(xp, dtype)), np.float64)
+    ATy = np.asarray(spmv(lp.AT, jnp.asarray(yp, dtype)), np.float64)
+    assert _rel(Ax[maps.row_pos], A @ x) <= GATHER_RTOL[dtype]
+    assert _rel(ATy[maps.col_pos], A.T @ y) <= GATHER_RTOL[dtype]
+    # Padding rows/columns stay exactly zero.
+    pad_r = np.ones(lp.m, bool)
+    pad_r[maps.row_pos] = False
+    assert np.all(Ax[pad_r] == 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind", STRUCTURES)
+def test_gather_spmm_matches_scipy(kind, dtype):
+    """Batched gather SpMM (the batched solver's product) equals scipy."""
+    A = _structured_csr(kind, 4)
+    lp, maps = build_device_problem(_lp_of(A), dtype=jnp.dtype(dtype))
+    rng = np.random.default_rng(2)
+    B = 5
+    X = rng.normal(size=(A.shape[1], B))
+    Xp = np.zeros((lp.n, B))
+    Xp[maps.col_pos] = X
+    Y = np.asarray(spmm(lp.A, jnp.asarray(Xp, dtype)), np.float64)
+    assert Y.shape == (lp.m, B)
+    assert _rel(Y[maps.row_pos], A @ X) <= GATHER_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("op", ["spmv", "spmm"])
+def test_dense_backend_highest_precision_matches_host(op, dtype):
+    """The dense backend (a full-precision matrix product) agrees with the
+    host f64 product and with the gather backend."""
+    from hprlp_tpu.ops.sparse import with_backend
+
+    A = _structured_csr("uniform", 5)
+    lp, maps = build_device_problem(_lp_of(A), dtype=jnp.dtype(dtype))
+    Ad = with_backend(lp.A, "dense")
+    assert Ad.backend == "dense" and Ad.dense.shape == (lp.m, lp.n)
+    rng = np.random.default_rng(6)
+    shape = (A.shape[1],) if op == "spmv" else (A.shape[1], 4)
+    X = rng.normal(size=shape)
+    Xp = np.zeros((lp.n,) + shape[1:])
+    Xp[maps.col_pos] = X
+    f = spmv if op == "spmv" else spmm
+    got = np.asarray(f(Ad, jnp.asarray(Xp, dtype)), np.float64)
+    assert _rel(got[maps.row_pos], A @ X) <= GATHER_RTOL[dtype]
+    gathered = np.asarray(f(lp.A, jnp.asarray(Xp, dtype)), np.float64)
+    assert _rel(got, gathered) <= GATHER_RTOL[dtype]
+    assert with_backend(Ad, "gather").dense is None
+
+
+def test_with_backend_rejects_unknown():
+    A = _structured_csr("uniform", 7)
+    lp, _ = build_device_problem(_lp_of(A))
+    with pytest.raises(ValueError, match="unknown SpMV backend"):
+        from hprlp_tpu.ops.sparse import with_backend
+
+        with_backend(lp.A, "csr")
